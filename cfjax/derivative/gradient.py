@@ -1,16 +1,16 @@
 """Gradient kernels: cov(grad f(x), grad f(y)) — the flagship O(n^2 d) path.
 
-TPU-native rebuild of reference src/gradient.jl. The reference evaluates
+JAX rebuild of reference src/gradient.jl. The reference evaluates
 one lazy O(d)-storage block per pair and runs a threaded block loop
 (src/gramian.jl:241-257); here the *entire* block MVM is reorganized into
-a few dense matmuls per row-block (MXU-shaped, no per-pair work at all):
+a few dense matmuls per row-block (GEMM-shaped, no per-pair work at all):
 
 isotropic trait (src/gradient.jl:86-92: block = -2 f' I - 4 f'' r r^T):
     b_i = sum_j [-2 K1_ij A_j - 4 K2_ij r_ij <r_ij, A_j>]
 with r_ij = x_i - y_j expanded so that only
     K1 @ A,  X A^T,  W @ Y,  rowsum(W) * X      (W = K2 * (X A^T - t))
 appear — four n x m x d matmuls, O(n m d) total like the reference's
-closed form, but saturating the MXU instead of scalar SIMD loops.
+closed form, but as matrix products instead of scalar SIMD loops.
 
 dot-product trait (src/gradient.jl:109-115: block = f' I + f'' y x^T):
     b = K1 @ A + (K2 * (X A^T)) @ Y
@@ -244,21 +244,8 @@ class GradientGramian(LinearOperator):
         # (cov of derivatives); don't claim it from symmetry alone
         return self._same and getattr(self.k, "is_mercer", False)
 
-    def _pallas_ok(self):
-        from ..ops.pallas_mvm import pallas_supported
-
-        return (
-            self.mode in ("iso", "dot")
-            and self.shape[0] >= 1024 * self.d
-            and pallas_supported(self.k, self.mode, self.x, self.y)
-        )
-
     def _apply(self, A):
         kws = {} if self.block is None else dict(block=self.block)
-        if self.mode in ("iso", "dot") and self._pallas_ok():
-            from ..ops.pallas_mvm import pallas_grad_matvec
-
-            return pallas_grad_matvec(self.k, self.x, self.y, A, self.mode)
         if self.mode == "iso":
             return grad_matvec_iso(self.k, self.x, self.y, A, **kws)
         if self.mode == "dot":
@@ -651,7 +638,7 @@ class JacobianConjugatedGradientGramian(LinearOperator):
 class VerticalRescalingGradientGramian(LinearOperator):
     """Gradient gramian of k(x,y) = f(x) h(x,y) f(y) (reference
     src/gradient_algebra.jl:177-202: per-block Woodbury rank-2 correction
-    of D_f H D_f). TPU-native whole-gramian form — the MVM collapses to
+    of D_f H D_f). Whole-gramian form — the MVM collapses to
     ONE value+gradient block MVM of the inner kernel h:
 
         Block_ij = grad f_i (f_j grad_y h + h grad f_j)^T

@@ -1,6 +1,6 @@
 """Hessian kernels: cov of Hessian observations — O(n^2 d^2) block MVMs.
 
-TPU-native rebuild of reference src/hessian.jl. The reference stores a
+JAX rebuild of reference src/hessian.jl. The reference stores a
 lazy per-pair element (r, r r^T, perfect-shuffle/Kronecker identities,
 src/hessian.jl:72-190); here the closed-form action of the d^2 x d^2
 block on a per-point d x d matrix is derived analytically and the whole
@@ -60,7 +60,7 @@ from ..ops.tiles import resolve_precision as _rp
 
 
 def _es(subscripts, *ops):
-    """einsum at the configured MXU input precision (ops/tiles.py)."""
+    """einsum at the configured matmul precision (ops/tiles.py)."""
     return jnp.einsum(subscripts, *ops, precision=_rp())
 from ..ops.tiles import sqdist_tile as _sqdist_tile
 

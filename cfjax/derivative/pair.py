@@ -1,6 +1,6 @@
 """The pair-family fast path: kernels as F(s, nx, ny).
 
-Observation (TPU-native, no analogue in the reference): with
+Observation (no analogue in the reference): with
 s = <x, y>, nx = |x|^2, ny = |y|^2, every isotropic kernel is
 F = f(nx + ny - 2 s), every dot-product kernel is F = f(s), the
 neural-network kernel is F(s, nx, ny) directly — and any

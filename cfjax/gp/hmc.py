@@ -324,9 +324,9 @@ def nuts_sample_host(
     Use this when ONE likelihood evaluation is seconds-to-minutes of
     device time (e.g. the n >= 2^20 SLQ logML): the jitted `nuts_sample`
     fuses the whole chain into a single XLA program, which would be a
-    multi-hour device execution (and trips remote-execution RPC
-    deadlines); here every device program stays at single-evaluation
-    granularity, with only O(tree depth) host-device round trips of
+    multi-hour device execution that can neither be interrupted nor
+    report progress; here every device program stays at single-evaluation
+    granularity, with only O(tree depth) host-device transfers of
     2-vectors on top. Returns (samples (num_samples, dim),
     mean_accept_stat) like `nuts_sample`."""
     import numpy as np

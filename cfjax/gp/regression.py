@@ -26,6 +26,9 @@ class GPPosterior:
     x_train: jnp.ndarray
     alpha: jnp.ndarray  # (K + noise I)^{-1} y
     noise: float
+    # (iterations, final residual norm) of the preconditioned-CG path;
+    # None where the solve took another path
+    cg_info: tuple = None
 
     def mean(self, x_test):
         Ks = gramian(self.kernel, x_test, self.x_train)
@@ -86,12 +89,12 @@ def gp_condition(kernel, x, y, noise: float = 1e-6,
                 f"{sorted(extra)}")
         M = nystrom_preconditioner(kernel, x, noise,
                                    rank=min(precond_rank, n // 2))
-        alpha, _ = _cg(K._matvec, jnp.asarray(y), M=M,
+        alpha, info = _cg(K._matvec, jnp.asarray(y), M=M,
                        x0=solve_opts.get("x0", None),
                        tol=solve_opts.get("tol", None),
                        maxiter=solve_opts.get("maxiter", None))
-    else:
-        alpha = K.solve(jnp.asarray(y), **solve_opts)
+        return GPPosterior(kernel, x, alpha, noise, cg_info=info)
+    alpha = K.solve(jnp.asarray(y), **solve_opts)
     return GPPosterior(kernel, x, alpha, noise)
 
 

@@ -1,6 +1,6 @@
 """Kernel algebra: sums, products, powers, separable combinations.
 
-TPU-native rebuild of reference src/algebra.jl. Combined input traits are
+JAX rebuild of reference src/algebra.jl. Combined input traits are
 propagated exactly as the reference's `sum_and_product_input_trait`
 (src/properties.jl:47-63): Constants are trait-transparent, heterogeneous
 traits collapse to GENERIC.

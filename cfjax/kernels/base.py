@@ -1,6 +1,6 @@
 """Kernel base types, input traits, and pytree registration.
 
-TPU-native redesign of the reference's abstract type tree + trait system
+JAX redesign of the reference's abstract type tree + trait system
 (reference: src/CovarianceFunctions.jl:32-42, src/properties.jl:31-63).
 Julia encodes structure in *types* and dispatches on them; here every
 kernel is a frozen dataclass registered as a JAX pytree (hyperparameters

@@ -1,6 +1,6 @@
 """Non-stationary (Mercer) kernels.
 
-TPU-native rebuild of reference src/mercer.jl: dot-product kernels,
+JAX rebuild of reference src/mercer.jl: dot-product kernels,
 Brownian motion, finite-basis (low-rank) kernels and the MacKay arcsine
 neural-network kernel.
 """

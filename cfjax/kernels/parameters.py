@@ -1,6 +1,6 @@
 """Hyperparameter plumbing.
 
-TPU-native rebuild of reference src/parameters.jl (`parameters`,
+JAX rebuild of reference src/parameters.jl (`parameters`,
 `nparameters`, `Base.similar`): kernels are pytrees, so the flat
 hyperparameter vector is just the concatenated leaves and reconstruction
 is `tree_unflatten` — no `@functor` annotations or stripped-type

@@ -1,6 +1,6 @@
 """Stationary / isotropic kernel zoo.
 
-TPU-native rebuild of reference src/stationary.jl. Every kernel is a
+JAX rebuild of reference src/stationary.jl. Every kernel is a
 pytree dataclass whose `profile(r2)` is a pure jnp scalar function,
 differentiable to the order the math allows (the derivative-kernel layer
 takes jax.grad of these profiles — replacing the reference's
@@ -83,8 +83,8 @@ class Exp(IsotropicKernel):
         return jnp.exp(-jnp.sqrt(s))
 
     def profile_value(self, s):
-        # rsqrt is ~4 VPU slots cheaper than sqrt on v5e (measured in the
-        # fused-MVM microbench, benchmarks/calibrate_vpu.py); the max
+        # s * rsqrt(s) in place of sqrt(s) (one fast hardware reciprocal
+        # square root on the GPU; its GPU speed is not measured); the max
         # clamp keeps jax.grad finite at s = 0 (value shift ~1e-9 at 0).
         # Clamp must stay >= ~2e-26: rsqrt's VJP is -x^{-3/2}/2, which
         # overflows f32 (-> inf, then inf*0 = NaN) for smaller clamps.

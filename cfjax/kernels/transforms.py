@@ -1,6 +1,6 @@
 """Kernel input/output transformations.
 
-TPU-native rebuild of reference src/transformation.jl: lengthscales, ARD,
+JAX rebuild of reference src/transformation.jl: lengthscales, ARD,
 custom norms, periodic (MacKay) warping, linear input scaling, generic
 warping, symmetrization, scalar chaining and vertical rescaling.
 """

@@ -1,17 +1,18 @@
 """Lazy Gramian operator: O(1)-memory kernel matrix with blocked,
 trait-specialized MVMs.
 
-TPU-native rebuild of the reference's Gramian core (src/gramian.jl). The
+JAX rebuild of the reference's Gramian core (src/gramian.jl). The
 reference's hot loop is a threaded+SIMD per-element loop
-(src/gramian.jl:78-99); here the MVM is reorganized *around the MXU*:
-row-blocks of the kernel matrix are produced as `profile(distance-tile)`
-where the distance tile comes from one matmul (||x||^2 + ||y||^2 - 2 X Y^T),
-the scalar profile is fused elementwise by XLA (VPU), and the tile is
-immediately contracted against the vector (MXU again). Memory stays
-O(block * m); `lax.map` over row blocks keeps the compiled graph static.
+(src/gramian.jl:78-99); here row-blocks of the kernel matrix are produced
+as `profile(distance-tile)`, where the distance tile is the exact
+difference form at small d and one matmul (||x||^2 + ||y||^2 - 2 X Y^T)
+above it, the scalar profile is fused elementwise by XLA, and the tile is
+immediately contracted against the vector. Memory stays O(block * m);
+`lax.map` over row blocks keeps the compiled graph static.
 
-A Pallas fused kernel (cfjax.ops.pallas_mvm) implements the same tiling
-fully in VMEM for the large-n dense path.
+On the GPU, single-RHS MVMs on the matmul path at the TF32 precision
+tiers (16 < d <= 512) go to a fused Triton kernel (cfjax.ops.pallas_mvm)
+that keeps each distance tile on chip.
 """
 
 from __future__ import annotations
@@ -92,14 +93,13 @@ def gramian_matvec(k, x, y, a, mode: str = "iso", block: int = 512):
 
     def body(xblk):
         K = kernel_tile(k, xblk, y, mode, c)
-        # single RHS: fused VPU multiply + lane reduction — EXACT f32
-        # (the default bf16 MXU ingestion truncates kernel ENTRIES to ~3
-        # digits, a 4e-3 matvec error that stalls/diverges PCG at GP
-        # noise levels — measured on chip r3) and cheaper than a matmul
-        # whose N=1 pads to the 128-granular MXU tile.
+        # single RHS: elementwise multiply + row reduction, exact f32. A
+        # matrix-vector product at reduced input precision (bf16 or TF32)
+        # would truncate kernel ENTRIES to ~3 digits — a ~1e-3 matvec
+        # error that stalls PCG at GP noise levels.
         if a.ndim == 1:
             return jnp.sum(K * a[None, :], axis=1)
-        # matrix RHS: MXU matmul at the configured input precision
+        # matrix RHS: matmul at the configured precision
         return matmul_p(K, a)
 
     # checkpoint PER BLOCK: under reverse AD (the Hutchinson/quadform
@@ -157,7 +157,7 @@ class Gramian(LinearOperator):
     src/gramian.jl:10-21). O(n d) storage; matvec/dense are blocked jitted
     kernels chosen by input trait at construction."""
 
-    def __init__(self, k: Kernel, x, y=None, block: int = None, use_pallas: str = "auto"):
+    def __init__(self, k: Kernel, x, y=None, block: int = None):
         from ..utils.grids import as_points
 
         self.k = k
@@ -167,14 +167,14 @@ class Gramian(LinearOperator):
         self.shape = (self.x.shape[0], self.y.shape[0])
         self.dtype = jnp.result_type(self.x.dtype, float)
         self.mode = mvm_mode(k)
+        # real-nu Matern profiles expand every tile element by the Bessel
+        # quadrature's node count
+        self.has_quadrature_profile = _contains_matern_nu(k)
         if block is None:
             block = _config.DEFAULT.mvm_block_rows if self.mode != "generic" else 128
-            if _contains_matern_nu(k):
-                # real-nu Matern profiles expand every tile element by the
-                # Bessel quadrature's node count — keep tiles small
+            if self.has_quadrature_profile:
                 block = min(block, 32)
         self.block = min(block, self.shape[0])
-        self.use_pallas = use_pallas
 
     @property
     def is_symmetric(self):
@@ -184,47 +184,10 @@ class Gramian(LinearOperator):
     def is_psd(self):
         return self._same and self.k.is_mercer
 
-    def _pallas_ok(self):
-        if self.use_pallas == "never":
-            return False
-        from ..ops.pallas_mvm import pallas_supported
-
-        ok = pallas_supported(self.k, self.mode, self.x, self.y)
-        if self.use_pallas == "always":
-            return ok
-        # auto (re-measured r5, both matmul precisions): whenever the
-        # path uses the MXU expansion at all (d > direct_sqdist_max_d),
-        # the fused kernel matches or beats XLA's lax.map expansion —
-        # at "highest" both run at the 6-pass matmul bound (d=64: pallas
-        # 2.38 ms vs XLA 2.63; d >= 256 tied), at "default" pallas sits
-        # on the VPU/MXU roofline where the XLA path spills K tiles.
-        # At d <= direct_sqdist_max_d the XLA path's unrolled difference
-        # form (no matmul, no 128-pad) wins — d=3 MaternP: 1.42 ms XLA
-        # vs 2.45 ms pallas.
-        return (ok and self.shape[0] >= 2048
-                and self.x.shape[1] > _config.DEFAULT.direct_sqdist_max_d)
-
-    def _pallas_direct_ok(self):
-        # small-d isotropic at LARGE n: the direct-form fused kernel
-        # (unrolled difference, no matmul) beats the XLA lax.map path
-        # 1.5x (measured r5: EQ d=2 n=1e6, 2.13 s vs 3.19 s, err 4e-7);
-        # below ~2^17 rows XLA wins (d=3 n=16384 MaternP: 1.42 ms XLA
-        # vs 1.48 ms direct — both at the calibrated VPU floor).
-        if self.use_pallas == "never":
-            return False
-        from ..ops.pallas_mvm import pallas_supported
-
-        return (self.mode == "iso" and self.x.shape[1] <= 8
-                and self.shape[0] >= (1 << 17)
-                and pallas_supported(self.k, self.mode, self.x, self.y))
-
     def _matvec(self, v):
-        if v.ndim == 1 and self._pallas_direct_ok():
-            from ..ops.pallas_mvm import pallas_gramian_matvec_direct
+        from ..ops.pallas_mvm import pallas_decline_reason
 
-            return pallas_gramian_matvec_direct(self.k, self.x, self.y, v,
-                                                tm=2048, tn=4096)
-        if v.ndim == 1 and self._pallas_ok():
+        if v.ndim == 1 and pallas_decline_reason(self) is None:
             from ..ops.pallas_mvm import pallas_gramian_matvec
 
             return pallas_gramian_matvec(self.k, self.x, self.y, v, self.mode)

@@ -7,7 +7,7 @@ O(n^2) direct solvers of src/toeplitz.jl (durbin:12-27, trench:31-71,
 levinson:76-111) become masked fixed-buffer `lax.fori_loop` recurrences
 (documented O(n) sequential scan depth with O(n) vector work per step —
 SURVEY.md §7 stage 4a). For large n the scalable solve is CG on the FFT
-MVM with a Strang circulant preconditioner (TPU-native alternative the
+MVM with a Strang circulant preconditioner (an alternative the
 reference lacks).
 """
 
@@ -382,7 +382,7 @@ def _trench_normalized(r):
     """Inverse of K = SymToeplitz([1, r]) (Trench's algorithm,
     reference src/toeplitz.jl:56-71). The reference's sequential fill
     B[i,j] = B[i-1,j-1] + w_ij is a prefix-sum along diagonals — computed
-    here as a vectorized skewed cumsum (TPU-friendly)."""
+    here as a vectorized skewed cumsum."""
     n = r.shape[0] + 1
     y = durbin(r)
     gamma = 1.0 / (1.0 + jnp.dot(r, y))

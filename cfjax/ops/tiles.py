@@ -1,21 +1,19 @@
 """Accuracy-controlled distance / inner-product tiles.
 
-TPU MXU matmuls ingest f32 inputs at bf16 by default. For kernel
-matrices this is not a benign speed knob (measured on v5e, round 3):
-the ||x||^2 + ||y||^2 - 2 x.y expansion CANCELS, so bf16 input rounding
-puts ~1e-2 absolute error on the squared-distance tile and ~7e-3
-relative error on dense-MVM outputs — enough to break the PSD-ness that
-Cholesky-based logML needs (NaN gradients on the real chip).
+Reduced-precision matmul inputs are not a benign speed knob for kernel
+matrices: the ||x||^2 + ||y||^2 - 2 x.y expansion CANCELS, so rounding
+the inputs puts absolute error on the squared distances of close points
+and can break the PSD-ness that Cholesky-based logML needs.
 
 Two remedies, both here:
   * small d (<= config.direct_sqdist_max_d): evaluate the difference
-    form sum_i (x_i - y_i)^2 directly on the VPU, unrolled over the
-    static d — EXACT in f32 (no cancellation: subtract first), and
-    cheaper than a 128-padded matmul below d ~ 16.
-  * larger d: keep the MXU expansion but at a configurable input
-    precision (default "highest" = bf16_6x ~ f32: rel err 2.8e-6 vs
-    7e-3; "high" = bf16_3x: 4.2e-5 at half the cost; "default" for
-    speed-of-light runs).
+    form sum_i (x_i - y_i)^2 directly, unrolled over the static d —
+    EXACT in f32 (no cancellation: subtract first); XLA fuses it into
+    the MVM's row reduction.
+  * larger d: keep the matmul expansion at a configurable precision.
+    On an H100: "highest" = IEEE f32 (EQ MVM rel err ~1e-7 at
+    d = 64..1024); "high" and "default" = TF32 (~3e-5), several times
+    faster through cuBLAS or the fused Triton kernel.
 """
 
 from __future__ import annotations
@@ -36,16 +34,16 @@ def resolve_precision(precision=None):
 
 
 def matmul_p(a, b, precision=None):
-    """a @ b at the configured MXU input precision. Output-side
-    contractions (k1 @ A, W @ y, ...) have no cancellation, but bf16
-    input rounding still leaves ~2e-3 relative error on gradient-MVM
-    outputs (measured r3) — the reference's README touts machine
-    precision, so accuracy is the default here too."""
+    """a @ b at the configured matmul precision. Output-side
+    contractions (k1 @ A, W @ y, ...) have no cancellation, but reduced
+    input precision still truncates kernel entries to ~3 digits — the
+    reference's README touts machine precision, so accuracy is the
+    default here too."""
     return jnp.matmul(a, b, precision=resolve_precision(precision))
 
 
 def inner_tile(xb, y, precision=None):
-    """(B, m) inner-product tile x_i . y_j at controlled MXU precision."""
+    """(B, m) inner-product tile x_i . y_j at the configured precision."""
     return jax.lax.dot_general(
         xb, y, (((1,), (1,)), ((), ())), precision=resolve_precision(precision)
     )
@@ -53,7 +51,7 @@ def inner_tile(xb, y, precision=None):
 
 def sqdist_tile(xb, y, precision=None, direct_max_d=None):
     """(B, m) squared-distance tile ||x_i - y_j||^2, exact at small d
-    (unrolled difference form), MXU expansion otherwise."""
+    (unrolled difference form), matmul expansion otherwise."""
     d = xb.shape[1]
     dmax = _config.DEFAULT.direct_sqdist_max_d if direct_max_d is None else direct_max_d
     if d <= dmax:

@@ -1,20 +1,21 @@
 """Device-mesh parallelism for lazy Gramians.
 
 The reference's only parallelism is shared-memory threads over Gramian
-rows (src/gramian.jl:81, SURVEY.md §2.3). The TPU-native equivalent is
+rows (src/gramian.jl:81, SURVEY.md §2.3). The device equivalent is
 row-block data parallelism over a `jax.sharding.Mesh`:
 
-  - points x are sharded along the mesh "data" axis (each chip owns a row
+  - points x are sharded along the mesh "data" axis (each device owns a row
     block of the implicit n x n kernel matrix),
   - y and the input vector are replicated,
-  - each chip evaluates its kernel tile on the fly (same blocked
-    matmul-profile MVM as single-chip) -> output is row-sharded,
+  - each device evaluates its kernel tile on the fly (same blocked
+    matmul-profile MVM as on one device) -> output is row-sharded,
   - CG runs on row-sharded vectors; its inner products become psum
     collectives automatically under jit/GSPMD.
 
-Multi-host: the same code runs under jax.distributed with a global mesh;
-collectives ride ICI within a slice and DCN across hosts — XLA owns the
-transport (no NCCL/MPI analogue needed, SURVEY.md §5)."""
+Multi-host: the same code runs under jax.distributed with a global mesh.
+XLA runs the collectives through NCCL: over NVLink between the GPUs of
+one host, over the network between hosts. Every GPU of a host reaches
+every other at the same rate, so mesh shapes follow the algorithm."""
 
 from __future__ import annotations
 
@@ -33,14 +34,13 @@ def init_distributed(coordinator_address: str = None, num_processes: int = None,
                      process_id: int = None, mesh_shape: tuple = None,
                      axis_names: tuple = ("rows", "cols")):
     """Multi-host bring-up: wire `jax.distributed.initialize` and build a
-    global 2-D mesh over every chip in the slice (SURVEY.md §5's DCN
-    story — collectives ride ICI within a host and DCN across hosts;
-    XLA owns the transport, there is no NCCL/MPI analogue to configure).
+    global 2-D mesh over every device of every process (XLA runs the
+    collectives through NCCL; there is nothing to configure).
 
-    In a single-process run (or under a TPU/GKE launcher that sets the
-    cluster env vars) all arguments may be omitted: `initialize()` is
-    auto-detecting, and is skipped entirely when there is nothing to
-    coordinate (one process, no coordinator given). Returns the global
+    In a single-process run all arguments may be omitted and
+    `initialize()` is skipped. With several processes, pass
+    `coordinator_address` (e.g. "localhost:<port>" on one host),
+    `num_processes` and `process_id`: nothing detects a cluster. Returns the global
     Mesh; shard with `jax.sharding.NamedSharding(mesh, P(...))` or the
     Sharded* operators in this package exactly as on one host —
     `jax.make_array_from_process_local_data` builds the global arrays.

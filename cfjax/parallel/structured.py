@@ -3,7 +3,7 @@ Kronecker and Toeplitz over a device mesh.
 
 Round-1 sharded only the scalar dense Gramian; the reference threads
 *every* hot loop (gradient blockmul src/gramian.jl:242-251, per-target
-Barnes-Hut src/barneshut.jl:88). This module is the TPU equivalent for
+Barnes-Hut src/barneshut.jl:88). This module is the device-mesh equivalent for
 the structured operators:
 
   * derivative-kernel block MVMs (iso/dot/slf/pair/generic, value+grad,
@@ -13,14 +13,15 @@ the structured operators:
     SOURCE points + input blocks, with a psum reduction of the partial
     MVMs — the dp x tp decomposition of this domain;
   * Barnes-Hut: the target-group axis of every width bucket is sharded
-    (the TPU analogue of the reference's per-target threaded loop);
+    (the mesh analogue of the reference's per-target threaded loop);
   * Kronecker: leading grid mode sharded; trailing modes contract
     locally, the leading mode reduces with psum_scatter over the mesh;
   * Toeplitz/circulant: batched FFT MVM with the RHS columns sharded.
 
 Everything is expressed with jax.shard_map + named collectives so the
-same code runs on a fake 8-device CPU mesh, one host's chips over ICI,
-or a multi-host slice (DCN) under jax.distributed.
+same code runs on a fake 8-device CPU mesh, one host's GPUs (XLA runs
+the collectives through NCCL over NVLink), or several hosts under
+jax.distributed.
 """
 
 from __future__ import annotations
@@ -230,7 +231,7 @@ class ShardedHessianGramian(_ShardedBlockGramian):
 
 def sharded_bh_matvec(F, v, mesh: Mesh, axis: str = None):
     """b = F v with the target-group axis of every Barnes-Hut width
-    bucket sharded over `axis` (TPU analogue of the reference's
+    bucket sharded over `axis` (mesh analogue of the reference's
     per-target threaded loop, src/barneshut.jl:88). Tree reductions +
     source data are replicated; each device contracts only its groups'
     precomputed interaction lists (the r5 planned path — the frontier

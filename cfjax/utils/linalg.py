@@ -11,7 +11,7 @@ import numpy as np
 def perfect_shuffle_indices(d: int, m: int = None) -> np.ndarray:
     """Permutation p with vec(X)[p] == vec(X^T) for X (d, m) row-major —
     the reference's lazy PerfectShuffle S vec(X) = vec(X') (src/util.jl:155-192)
-    as an index vector (a gather on TPU, no matrix ever built)."""
+    as an index vector (a gather, no matrix ever built)."""
     m = d if m is None else m
     idx = np.arange(d * m).reshape(d, m)
     return idx.T.reshape(-1).copy()

@@ -63,3 +63,13 @@ def isisotropic_probe(k, d: int = 3, n: int = 16, seed: int = 0, tol=1e-8) -> bo
 @jax.jit
 def pairwise_xy(k, x, y):
     return jax.vmap(lambda xi: jax.vmap(lambda yj: k(xi, yj))(y))(x)
+
+
+def round_mantissa(x, bits: int) -> np.ndarray:
+    """x as f32, rounded to nearest with `bits` explicit mantissa bits
+    (TF32: 10, bf16: 7), returned in f64: the operand a tensor-core dot
+    at that input precision multiplies."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    drop = 23 - bits
+    u = ((u + (1 << (drop - 1))) >> drop) << drop
+    return u.astype(np.uint32).view(np.float32).astype(np.float64)

@@ -37,19 +37,15 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-import os
-
 import jax
 import jax.numpy as jnp
 
-# honor a user-configured cache dir; default to a user-relative path
-if not jax.config.jax_compilation_cache_dir:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cfjax_tpu_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 
 def main(n: int = 1 << 20, quick: bool = False):
+    from cfjax.utils.cache import enable_compile_cache, use_gpu_compile_flags
+
+    use_gpu_compile_flags()
+    enable_compile_cache()
     from cfjax.barneshut import BarnesHutFactorization
     from cfjax.gp import log_marginal_likelihood, nuts_sample
     from cfjax.kernels import EQ, Lengthscale
@@ -153,7 +149,7 @@ def main(n: int = 1 << 20, quick: bool = False):
     # --- large-n GP solve: EXACT lazy MVM + Nystrom-preconditioned CG ---
     # (a solve through the approximate BH matvec is ill-posed at GP noise
     # levels: its non-symmetric error >> sigma^2 breaks CG/MINRES;
-    # measured round 3. The exact lazy Gramian MVM rides the MXU and the
+    # measured in an earlier version. The exact lazy Gramian MVM and the
     # rank-r Nystrom preconditioner cuts iterations ~100x.)
     from cfjax.operators import gramian, nystrom_preconditioner
 

@@ -32,7 +32,7 @@ def test_tree_build(rng):
 
 
 def test_tree_build_device_path(rng):
-    """The jitted device build (used on TPU backends) must produce a
+    """The jitted device build (used on accelerators) must produce a
     valid tree: a true permutation, covering radii at every level, and
     host mirrors that match the device arrays (they come back through
     one packed bitcast transfer)."""
@@ -53,6 +53,24 @@ def test_tree_build_device_path(rng):
     # padded slots replicate the last original point
     assert np.all(t.perm < 5000) or np.all(
         y[-1] == t.points_np[np.nonzero(t.perm >= 5000)[0][0]])
+
+
+@pytest.mark.gpu
+def test_tree_build_auto_takes_device_path_on_card(gpu, rng):
+    """On the GPU, build_tree's auto method picks the device Hilbert build
+    (mirrors stay on the card until first touched) and the tree it
+    builds there is valid."""
+    y = jnp.asarray(rng.uniform(0, 10, (1 << 15, 2)), dtype=jnp.float32)
+    t = build_tree(y, leafsize=16)
+    assert t._packed is not None and t._perm is None   # device build, lazy mirrors
+    P = t.points_np.shape[0]
+    assert sorted(t.perm.tolist()) == list(range(P))
+    for l in range(t.levels + 1):
+        nl = 2**l
+        pts = t.points_np.reshape(nl, P // nl, -1)
+        c, r = t.centers_np[l], t.radii_np[l]
+        dist = np.sqrt(((pts - c[:, None, :]) ** 2).sum(-1)).max(1)
+        assert np.all(dist <= r + 1e-4)
 
 
 @pytest.mark.parametrize("wclass", ["ones", "rand", "signed", "randn"])
@@ -117,9 +135,8 @@ def test_sparse_gramian(rng):
 
 
 def test_tile_ell_small_m(rng):
-    """m <= 128 => single column tile (nt == 1): must route through the
-    XLA slab even when the pallas path is requested (Mosaic rejects the
-    (1, 128) lane-gather — ADVICE.md round 1)."""
+    """m <= 128 => single column tile (nt == 1): the slab MVM gathers
+    from a (1, 128) operand and must still match the dense matrix."""
     from cfjax.operators.tile_ell import _tile_ell_matvec_impl
 
     n, m, d = 200, 100, 3
@@ -132,7 +149,7 @@ def test_tile_ell_small_m(rng):
     go = tuple(g[2] for g in S.groups)
     gv = tuple(g[3] for g in S.groups)
     crops = tuple(g[1] - g[0] for g in S.groups)
-    out = _tile_ell_matvec_impl(go, gv, S.perm, a, S.nt, True, crops)[:n]
+    out = _tile_ell_matvec_impl(go, gv, S.perm, a, S.nt, crops)[:n]
     expect = np.asarray(S.todense()) @ np.asarray(a)
     np.testing.assert_allclose(np.asarray(out), expect, rtol=1e-5, atol=1e-7)
 

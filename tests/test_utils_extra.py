@@ -81,36 +81,99 @@ def test_explain_and_matrixkernel(rng):
     np.testing.assert_allclose(np.asarray(G.todense()), A[[0, 2, 4]][:, [1, 3]])
 
 
-def test_slope_timing_rejects_noise():
-    """A slope that cannot dominate jitter raises MeasurementError with
-    an upper bound instead of clamping to 0 (ADVICE.md round 1)."""
-    import pytest
+def test_time_call_median_of_timed_calls():
+    """Warm-up calls are not timed; the result is the median of `reps`
+    calls, each of which ends in block_until_ready."""
+    import time
 
-    from cfjax.utils.timing import MeasurementError, time_chained
+    from cfjax.utils.timing import time_call
 
-    step = lambda v: v + 1.0
-    v0 = jnp.zeros(8)
-    with pytest.raises(MeasurementError) as ei:
-        # delta_ratio impossible to satisfy -> must fail, never return 0
-        time_chained(step, v0, repeats=2, delta_ratio=1e12, time_budget=0.5)
-    assert ei.value.upper_bound is not None and ei.value.upper_bound > 0
+    calls = []
+
+    def fn(v):
+        calls.append(1)
+        time.sleep(0.002 if len(calls) > 2 else 0.2)  # slow warm-up
+        return v + 1.0
+
+    dt = time_call(fn, jnp.zeros(8), warmup=2, reps=5)
+    assert len(calls) == 7
+    assert 0.002 <= dt < 0.1
 
 
-def test_slope_timing_measures_real_op():
-    from cfjax.utils.timing import time_chained
+def test_time_call_measures_real_op():
+    from cfjax.utils.timing import time_call
 
     A = jnp.asarray(np.random.default_rng(0).standard_normal((256, 256)),
                     dtype=jnp.float32)
-    dt = time_chained(lambda v: A @ v, jnp.ones(256), repeats=3,
-                      time_budget=30.0)
+    dt = time_call(jax.jit(lambda v: A @ v), jnp.ones(256), reps=3)
     assert dt > 0
 
 
 def test_roofline_accounting():
-    from cfjax.utils.roofline import Work, summarize
+    import pytest
 
-    w = Work(mxu=8.6e9, vpu=1e7, hbm_bytes=1e7)
-    ok = summarize(w, 1e-3)       # ~8.6 TFLOP/s: plausible
-    assert ok["valid"] and ok["bound"] == "MXU"
-    bad = summarize(w, 1e-6)      # implies 8600 TFLOP/s: impossible
-    assert not bad["valid"]
+    from cfjax.utils.roofline import peaks, roofline_seconds
+
+    kind = "NVIDIA H100 80GB HBM3"
+    assert peaks(kind)["tf32"] == 495e12
+    # 2 GFLOP at the f32 peak vs 1 GB at 3.35 TB/s: memory bound
+    t, bound = roofline_seconds(kind, 2e9, 1e9)
+    assert bound == "hbm" and t == 1e9 / 3.35e12
+    t, bound = roofline_seconds(kind, 1e15, 1e9, rate="bf16")
+    assert bound == "bf16" and t == 1e15 / 989e12
+    with pytest.raises(ValueError, match="no published peaks"):
+        peaks("cpu")
+
+
+def test_compile_cache_location(monkeypatch, tmp_path):
+    """$JAX_COMPILATION_CACHE_DIR when set, else `.jax_cache` at the root
+    of the checkout; the path is what JAX's config then holds."""
+    import os
+
+    from cfjax.utils import cache
+
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cache.enable_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
+        path = cache.enable_compile_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(root, ".jax_cache")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_import_sets_no_xla_flags():
+    """Importing cfjax leaves XLA_FLAGS as it was: the GPU compile flags
+    are for programs to opt into."""
+    import os
+
+    import cfjax  # noqa: F401
+
+    assert "xla_gpu" not in os.environ.get("XLA_FLAGS", "")
+
+
+def test_use_gpu_compile_flags(monkeypatch):
+    """Adds each flag unless XLA_FLAGS sets it; raises once a backend is
+    up (XLA would ignore the flags), unless nothing is missing."""
+    import os
+
+    import pytest
+    from jax._src import xla_bridge
+
+    from cfjax.utils import cache
+
+    monkeypatch.setattr(xla_bridge, "backends_are_initialized", lambda: False)
+    monkeypatch.setenv("XLA_FLAGS", "--xla_gpu_autotune_level=2 --xla_foo=1")
+    assert cache.use_gpu_compile_flags().split() == [
+        "--xla_gpu_autotune_level=2", "--xla_foo=1",
+        "--xla_gpu_enable_triton_gemm=false"]
+    monkeypatch.setattr(xla_bridge, "backends_are_initialized", lambda: True)
+    before = cache.use_gpu_compile_flags()  # nothing missing: no error
+    assert before == os.environ["XLA_FLAGS"]
+    monkeypatch.setenv("XLA_FLAGS", "--xla_foo=1")
+    with pytest.raises(RuntimeError, match="before the first JAX computation"):
+        cache.use_gpu_compile_flags()
+    assert os.environ["XLA_FLAGS"] == "--xla_foo=1"
